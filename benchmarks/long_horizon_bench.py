@@ -1,11 +1,8 @@
-"""First-class long-horizon bench entry (round-5 task #3 'done' artifact).
+"""Long-horizon bench entry.
 
 One JSON line per N in {140, 280}: the fused riccati solver's warm
 per-SCP-iteration latency (state boxes + slew, M=1, f32) and the
-warm-cache startup cost. Cold-compile economics and the host-API
-decomposition are in profile_long_horizon_out*.txt / profile_lh_warm_out
-.txt (summary: cold compiles are a remote-toolchain property; the host API
-adds the user callback's own per-iteration cost).
+warm-cache startup cost.
 """
 
 import json
@@ -19,6 +16,8 @@ import numpy as np
 
 
 def main():
+    import jax
+
     import pmpc_tpu  # noqa: F401
     from pmpc_tpu.jax_scp import build_scp_solver, make_scp_data
     from __graft_entry__ import _dubins
@@ -42,13 +41,11 @@ def main():
         for max_it in (4, 12):
             solver = mk(max_it)
             t0 = time.time()
-            X, U, info = solver(data)
-            _ = float(np.asarray(U).sum())
+            X, U, info = jax.block_until_ready(solver(data))
             out[f"startup{max_it}_s"] = round(time.time() - t0, 1)
             t0 = time.time()
             for _ in range(3):
-                X, U, info = solver(data)
-            _ = float(np.asarray(U).sum())
+                X, U, info = jax.block_until_ready(solver(data))
             out[f"warm{max_it}_s"] = (time.time() - t0) / 3
         ms_it = (out["warm12_s"] - out["warm4_s"]) / 8 * 1e3
         print(json.dumps(dict(

@@ -9,7 +9,7 @@ per-stage thrust-cone fast path).
     constraint on the first control plus per-stage SOC cones, solved by the
     NT-scaled cone IPM.
 
-Run:  python examples/arbitrary_constraints.py   (TPU if attached, else CPU)
+Run:  python examples/arbitrary_constraints.py   (JAX's default device)
 Set PMPC_EXAMPLES_FAST=1 for a seconds-long smoke run.
 """
 

@@ -8,7 +8,7 @@
     (L-BFGS / Newton over the condensed variable with log-barrier bounds);
     also shown with a named solver choice (``solver="SQP"``).
 
-Run:  python examples/custom_cost.py       (TPU if attached, else CPU)
+Run:  python examples/custom_cost.py       (JAX's default device)
 Set PMPC_EXAMPLES_FAST=1 for a seconds-long smoke run.
 """
 

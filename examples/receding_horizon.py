@@ -9,11 +9,11 @@ A unicycle car tracks a moving waypoint for T steps. Each control step:
     actuation.
 
 The control loop uses the FUSED solver (`jax_scp.build_scp_solver`): one
-device call per control step — the TPU-native latency path (the host-loop
+device call per control step — the on-device latency path (the host-loop
 `pmpc_tpu.solve` API works identically but pays per-iteration dispatch;
 set PMPC_RH_HOST=1 to run it for comparison).
 
-Run:  python examples/receding_horizon.py    (TPU if attached, else CPU)
+Run:  python examples/receding_horizon.py    (JAX's default device)
 Set PMPC_EXAMPLES_FAST=1 for a seconds-long smoke run.
 """
 

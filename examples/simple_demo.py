@@ -9,7 +9,7 @@
     first Nc=3 controls. The shared prefix hedges against the failure mode;
     the suffix splits per scenario.
 
-Run:  python examples/simple_demo.py        (TPU if attached, else CPU)
+Run:  python examples/simple_demo.py        (JAX's default device)
 Set PMPC_EXAMPLES_FAST=1 for a seconds-long smoke run (used by the tests).
 Plots are saved to examples/out/ when matplotlib is importable.
 """

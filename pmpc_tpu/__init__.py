@@ -1,6 +1,6 @@
-"""pmpc_tpu: a TPU-native particle sequential-convex-programming MPC engine.
+"""pmpc_tpu: a particle sequential-convex-programming MPC engine in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
+A from-scratch JAX/XLA implementation with the capabilities of the
 reference StanfordASL/pmpc library: nonlinear finite-horizon MPC via SCP with
 consensus optimization over M sampled dynamics particles, convex-cone
 constraints, and arbitrary linearized costs — with the convex subproblems
@@ -11,30 +11,35 @@ Public API parity with ``pmpc/__init__.py``: ``solve``, ``scp_solve``,
 ``solve_problems``, and the ``remote`` farm module.
 """
 
-def _setup_compilation_cache():
-    """Best-effort persistent XLA compilation cache (AOT-parity: stands in for
-    the reference's PackageCompiler sysimage, ``build_pmpc_lib.jl:42-49``).
-    First compiles through the TPU toolchain cost tens of seconds; cached
-    reloads take milliseconds."""
-    import os
+import os
 
+# the checkout's own cache directory, used when JAX_COMPILATION_CACHE_DIR is
+# unset (a fixed path: the cache key includes it, so a moving one never hits)
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def _setup_compilation_cache():
+    """Persistent XLA compilation cache (AOT-parity: stands in for the
+    reference's PackageCompiler sysimage, ``build_pmpc_lib.jl:42-49``).
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is JAX's own setting and is left
+    alone; otherwise the cache goes to `CACHE_DIR`. ``PMPC_TPU_NO_CACHE=1``
+    turns it off."""
     import jax
 
     if os.environ.get("PMPC_TPU_NO_CACHE") == "1":
         return
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR") or \
+            jax.config.jax_compilation_cache_dir:
+        return
     try:
-        if jax.config.jax_compilation_cache_dir:
-            return
-        cache = os.environ.get(
-            "PMPC_TPU_CACHE_DIR",
-            os.path.join(os.path.expanduser("~"), ".cache", "pmpc_tpu", "jax_cache"),
-        )
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # cache is an optimization, never a hard dependency
-        pass
+        os.makedirs(CACHE_DIR, exist_ok=True)
+    except OSError:  # read-only install: the cache is an optimization only
+        return
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 _setup_compilation_cache()

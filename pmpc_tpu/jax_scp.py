@@ -28,8 +28,7 @@ from jax import lax
 from .dynamics import linearize
 from .solvers.ipm import BoxBounds, ipm_core
 from .solvers.reduced import assemble_condensed, recover_XU, solve_eq
-from .utils import (with_matmul_precision, hot_matmul_precision,
-                    hot_precision_scope)
+from .utils import with_matmul_precision
 
 
 class SCPData(NamedTuple):
@@ -172,8 +171,8 @@ def build_scp_solver(
         raise NotImplementedError(
             "method='priccati' does not support state boxes or SOC cones; "
             "use method='riccati'")
-    # unroll=8 cuts the remote compile ~24x at long N with warm latency
-    # unchanged (benchmarks/profile_long_horizon_out.txt)
+    # unroll=8 at long N: a partly unrolled Riccati sweep (compile and warm
+    # time of the choice on the card are not measured yet)
     _runroll = riccati_unroll if riccati_unroll is not None \
         else (8 if N >= 64 else 1)
     if relin_stale and method != "condensed":
@@ -461,13 +460,13 @@ def build_scp_solver(
             warm0, acc0,
         )
 
-    @with_matmul_precision("high")
+    @with_matmul_precision("highest")
     def run_chunk(data: SCPData, carry, n_it: int = 1):
         """Advance the SCP loop by up to ``n_it`` iterations (converged/
         frozen lanes no-op). Building block of the lane-refill serving loop
         (`pmpc_tpu.batch.solve_stream`): the host swaps finished problems
         out between chunks instead of running every lane to the batch max —
-        the TPU-idiomatic analog of the farm's greedy requeue
+        the on-device analog of the farm's greedy requeue
         (``pmpc/remote.py:391-452``)."""
         def body(c, _):
             return iteration(data, c, None)[0], None
@@ -527,7 +526,7 @@ def build_scp_solver(
                     jnp.asarray(0, jnp.int32), data.X_prev, data.U_prev)
         return warm0, acc0
 
-    @with_matmul_precision("high")
+    @with_matmul_precision("highest")
     def solver(data: SCPData, state=None):
         """``state``: the IPM primal/dual/slack tuple a previous call returned
         in ``info["solver_state"]`` (when built with ``return_state=True``) —
@@ -566,23 +565,6 @@ def build_scp_solver(
         if return_state:
             info["solver_state"] = warm_fin
         return X_traj, U, info
-
-    # size-aware hot-core precision: the condensed path factors (nf x nf)
-    # per-particle blocks every IPM iteration; past nf~64 the 3-pass 'high'
-    # factor error inflates iteration counts and loses outright (measured:
-    # config5 nf=90 74.6 vs 44.4 its/solve — see utils.hot_matmul_precision).
-    # The scope upgrades every nested with_matmul_precision("high") core to
-    # 'highest' at trace time; it is only entered for the upgrade case so the
-    # small-block fast path keeps its static decorators untouched.
-    prec = "high"
-    if method == "condensed":
-        prec = hot_matmul_precision(max((N - Nc) * udim, Nc * udim, 1))
-    if prec != "high":
-        inner = solver
-
-        def solver(data: SCPData, state=None):  # noqa: F811
-            with hot_precision_scope(prec):
-                return inner(data, state)
 
     jitted = jax.jit(solver) if jit else solver
 

@@ -1,16 +1,20 @@
 """Blocked batched Cholesky with explicit inverse factor — matmul-only solves.
 
-XLA's `jnp.linalg.cholesky` on TPU lowers to a sequential column loop that is
-catastrophically slow for large batches of small matrices (measured ~47 ms for
-(8192, 50, 50) f32 on v5e vs ~0.5 ms for a same-size batched matmul). This
-module computes, in one pass,
+The IPM factors a large batch of small SPD matrices once per iteration and
+applies each factor several times. This module computes, in one pass,
 
     Minv = L^{-1}  where  A = L L',
 
 using a right-looking BLOCKED factorization whose panel updates are batched
 GEMMs; the diagonal blocks (<=16x16) use an unrolled column Cholesky and an
-unrolled forward-substitution inverse (static Python loops -> fully fused
-VPU code). Solves then cost two GEMMs:  A^{-1} b = Minv' (Minv b).
+unrolled forward-substitution inverse (static Python loops -> fused
+elementwise code). Solves then cost two batched GEMMs instead of two
+triangular solves:  A^{-1} b = Minv' (Minv b).
+
+`ops.linalg.spd_factor` does not use this factor: on an H100 XLA's batched
+Cholesky + triangular solves were faster at both hot shapes (PERF.md).
+`chip_smoke.py` keeps timing it as the alternative route, and
+`inv_chol_apply` applies the CPU host path's inverse factors.
 
 Numerical note: explicit triangular inverses are mildly less stable than
 back-substitution, which is acceptable here — the IPM regularizes its Newton

@@ -1,14 +1,14 @@
 """Multi-host runtime helpers (jax.distributed).
 
 The reference scales across machines with a ZMQ/Redis worker farm
-(``pmpc/remote.py``); the TPU-native equivalent is the JAX multi-host runtime:
-one process per host, a global mesh whose 'batch' axis spans hosts over DCN
-while 'particle' stays intra-slice on ICI, and per-host shards fed with
-``jax.make_array_from_process_local_data``.
+(``pmpc/remote.py``); the in-program equivalent is the JAX multi-host
+runtime: one process per host, a global mesh whose 'batch' axis spans hosts
+over the network while 'particle' stays within a host on NVLink, and
+per-host shards fed with ``jax.make_array_from_process_local_data``.
 
-This module cannot be exercised on single-host CI; it is the documented,
-thin wiring layer for pod deployments (driver validates the sharding itself
-via ``__graft_entry__.dryrun_multichip`` on a virtual device mesh).
+This is the thin wiring layer for multi-host deployments; the sharding
+itself is checked by ``__graft_entry__.dryrun_multichip`` on a virtual
+device mesh, and `tests/test_distributed.py` runs two local processes.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize the multi-host runtime (idempotent). On TPU pods the
-    arguments are auto-detected from the environment."""
+    """Initialize the multi-host runtime (idempotent). Without a cluster
+    manager that JAX detects, pass all three arguments
+    (``coordinator_address`` as ``host:port`` of process 0)."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -38,8 +39,8 @@ def init_distributed(
 
 def global_mesh(n_particle: int = 1):
     """A ("batch", "particle") mesh over ALL processes' devices; 'batch' spans
-    hosts (DCN), 'particle' should divide the per-host device count so
-    consensus reductions stay on ICI."""
+    hosts, 'particle' should divide the per-host device count so consensus
+    reductions stay within a host."""
     from .mesh import make_mesh
 
     return make_mesh(n_particle=n_particle, devices=jax.devices())

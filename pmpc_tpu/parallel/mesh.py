@@ -1,11 +1,13 @@
 """Device mesh construction and sharding helpers.
 
-The TPU-native replacement for the reference's process-per-worker solve farm
+The in-program replacement for the reference's process-per-worker solve farm
 (``pmpc/remote.py``): instead of queueing problems to ZMQ workers, the scenario
 batch is a sharded array axis on a ``jax.sharding.Mesh`` and the particle axis
-can be sharded too — the consensus coupling then reduces over ICI with XLA
-collectives (the ``psum`` the reference performs serially in
-``main.jl:338-344``/``lqp_utils.jl:17-61``).
+can be sharded too — the consensus coupling then reduces across devices with
+XLA collectives (the ``psum`` the reference performs serially in
+``main.jl:338-344``/``lqp_utils.jl:17-61``). The mesh assumes no topology:
+devices are laid out in the order ``jax.devices()`` gives them, which suits
+cards joined all to all (NVLink within a host).
 
 Axes convention:
 - ``batch``: independent scenario/problem instances (pure data parallel),

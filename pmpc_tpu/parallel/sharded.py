@@ -7,8 +7,7 @@ then auto-partitions the whole SCP program: per-particle condensation,
 Cholesky factorizations and IPM iterations stay local to each particle shard,
 while the consensus-block contractions (sums over M inside the arrow Schur
 complement, IPM duality reductions) lower to ``all-reduce`` over the
-'particle' axis on ICI — the scaling recipe of the How-to-Scale-Your-Model
-playbook applied to consensus MPC.
+'particle' axis (NVLink between the cards of one host).
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ Wire-format and behavior parity with the reference farm (``pmpc/remote.py``):
 - a jit warm-up call on server start stands in for the reference's
   ``precompilation_call`` (``remote.py:133-166``).
 
-On TPU deployments one worker process owns the chip and serves batched
-problems; the farm is the ops-compatibility layer on top of the sharded-batch
-path (`pmpc_tpu.parallel`), not the primary scaling mechanism.
+On a GPU host each worker process owns one card (`worker_devices`) and
+serves batched problems; the farm is the ops-compatibility layer on top of
+the sharded-batch path (`pmpc_tpu.parallel`), not the primary scaling
+mechanism.
 """
 
 from __future__ import annotations
@@ -257,9 +258,11 @@ def precompilation_call(warmup_kind: str = "linear") -> None:
         scp_solve(f_fx_fu_fn, Q, R, np.ones(xdim), max_it=2, verbose=False, **kw)
 
 
-def _server(port: int, status_flag: Value, warmup: bool = True) -> None:
+def _server(port: int, status_flag: Value, warmup: bool = True,
+            device: Optional[str] = None) -> None:
     import threading
 
+    pin_worker_device(device)
     ctx = zmq.Context()
     sock = ctx.socket(zmq.REP)
     sock.bind(f"tcp://*:{port}")
@@ -317,10 +320,13 @@ def _server(port: int, status_flag: Value, warmup: bool = True) -> None:
 class Server:
     """A worker process wrapping `_server` with liveness tracking."""
 
-    def __init__(self, port: int, warmup: bool = True):
+    def __init__(self, port: int, warmup: bool = True,
+                 device: Optional[str] = None):
         self.port = port
+        self.device = device
         self.status_flag = Value("d", time.time())
-        self.process = Process(target=_server, args=(port, self.status_flag, warmup))
+        self.process = Process(target=_server,
+                               args=(port, self.status_flag, warmup, device))
         self.process.daemon = True
 
     def start(self):
@@ -336,8 +342,49 @@ class Server:
             self.process.join(timeout=5.0)
 
 
-def start_server(port: int = DEFAULT_PORT, warmup: bool = True) -> Server:
-    return Server(port, warmup=warmup).start()
+def start_server(port: int = DEFAULT_PORT, warmup: bool = True,
+                 device: Optional[str] = None) -> Server:
+    return Server(port, warmup=warmup, device=device).start()
+
+
+def visible_gpus() -> List[str]:
+    """CUDA ids of the cards this process may use, found without starting
+    JAX (a JAX process reserves most of a card's memory when it starts).
+    Empty when JAX is held to the CPU or there is no NVIDIA card."""
+    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
+        return []
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return [d.strip() for d in visible.split(",") if d.strip()]
+    import subprocess
+
+    try:
+        out = subprocess.run(["nvidia-smi", "--list-gpus"], capture_output=True,
+                             text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [str(i) for i, line in enumerate(
+        ln for ln in out.splitlines() if ln.startswith("GPU "))]
+
+
+def pin_worker_device(device: Optional[str]) -> None:
+    """Make ``device`` the only card this process sees; called in a worker
+    before its first JAX computation starts the backend."""
+    if device is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = device
+
+
+def worker_devices(worker_num: int, gpus: List[str]) -> List[Optional[str]]:
+    """The card each of ``worker_num`` workers is pinned to: worker i gets
+    ``gpus[i]``, since a second JAX process on a card fails for want of
+    memory. Without cards (CPU farm) no worker is pinned."""
+    if not gpus:
+        return [None] * worker_num
+    if worker_num > len(gpus):
+        raise ValueError(
+            f"--worker-num {worker_num} exceeds the {len(gpus)} visible "
+            f"GPU(s): each worker needs a card of its own")
+    return list(gpus[:worker_num])
 
 
 # -- batch scheduler ---------------------------------------------------------------
@@ -421,10 +468,15 @@ def main():  # pragma: no cover - exercised via subprocess in tests
 
     signal.signal(signal.SIGTERM, lambda *a: sys.exit(0))
 
+    try:
+        devices = worker_devices(args.worker_num, visible_gpus())
+    except ValueError as e:
+        parser.error(str(e))
     servers = {}
     next_port = args.port
-    for _ in range(args.worker_num):
-        servers[next_port] = start_server(next_port, warmup=not args.no_warmup)
+    for device in devices:
+        servers[next_port] = start_server(next_port, warmup=not args.no_warmup,
+                                          device=device)
         next_port += 1
     print(f"pmpc_tpu farm: {args.worker_num} worker(s) on ports "
           f"{args.port}..{next_port - 1}", flush=True)
@@ -435,9 +487,10 @@ def main():  # pragma: no cover - exercised via subprocess in tests
                 if not srv.is_alive():
                     srv.kill()
                     del servers[port]
-                    if args.resurrect:
-                        servers[next_port] = start_server(next_port,
-                                                          warmup=not args.no_warmup)
+                    if args.resurrect:  # on the dead worker's card
+                        servers[next_port] = start_server(
+                            next_port, warmup=not args.no_warmup,
+                            device=srv.device)
                         next_port += 1
     except KeyboardInterrupt:
         for srv in servers.values():

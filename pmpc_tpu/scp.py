@@ -503,8 +503,8 @@ def scp_solve(
 def _flag_f32_stall(data, settings, max_res: float, res_tol: float) -> None:
     """Detect the documented float32 failure signature and surface it.
 
-    The f32 accuracy envelope (benchmarks/RESULTS_r2.md) shows hard instances
-    where the SCP residual PLATEAUS around 1e-3 — f32 wobble in the
+    The f32 accuracy envelope (benchmarks/accuracy_sweep.py) has hard
+    instances where the SCP residual PLATEAUS around 1e-3 — f32 wobble in the
     linearization/condensation moves the subproblem optimum between
     equivalent iterates, so the loop exits at max_it "not converged" with no
     hint that precision (not the problem) is the limiter. Signature: 32-bit
@@ -525,7 +525,7 @@ def _flag_f32_stall(data, settings, max_res: float, res_tol: float) -> None:
             f"SCP residual plateaued at {max_res:.2e} (res_tol={res_tol:.0e})"
             " in float32 — this matches the f32 precision floor on hard "
             "instances; retry with solver_settings={'dtype': 'float64'} "
-            "(CPU or TPU x64).",
+            "(x64 mode).",
             RuntimeWarning, stacklevel=3)
 
 

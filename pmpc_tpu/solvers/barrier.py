@@ -409,7 +409,7 @@ def _riccati_consensus_raw(x0s, c, A, B, Qt, xt, Rt, ut, Nc: int):
 
 @partial(jax.jit, static_argnames=("method", "has_u", "has_x", "has_slew",
                                    "Nc", "iters", "ls_steps"))
-@with_matmul_precision("high")
+@with_matmul_precision("highest")
 def riccati_barrier_core(
     x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref, reg_x, reg_u,
     u_l, u_u, x_l, x_u,

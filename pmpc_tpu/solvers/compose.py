@@ -7,7 +7,7 @@ objective, box bounds (optionally *smoothed* into exp cones for
 user ``extra_cstrs`` splices (``cone_utils.jl:99-170``) whose leading linear
 rows are themselves logbarrier-smoothed when smoothing is on
 (``main.jl:292-316``), and per-stage control-norm cones. This module is the
-TPU-native equivalent: it assembles the same composed program DENSELY over
+on-device equivalent: it assembles the same composed program DENSELY over
 the condensed variable (states eliminated through ``x = Xmap z + xoff``)
 with batched jnp block/broadcast ops inside one jitted function per static
 signature, then solves it with

@@ -28,10 +28,11 @@ def _cone_precision_scope(dtype, device="auto"):
 
     These run in f64 by default (reference parity: its cone solvers are f64
     CPU — ECOS/OSQP/Mosek), which needs ``enable_x64`` when the session
-    default is 32-bit. On accelerators without native f64 (TPU emulates it
-    ~10x slow) the program is additionally pinned to the in-process XLA CPU
-    backend — still jit-compiled batched assembly + IPM, just on the host,
-    exactly where the reference runs these solves. ``device='auto'`` pins to
+    default is 32-bit. The f64 program is additionally pinned to the
+    in-process XLA CPU backend — still jit-compiled batched assembly + IPM,
+    just on the host, exactly where the reference runs these solves; moving
+    it onto the accelerator is open work that needs its own measurement.
+    ``device='auto'`` pins to
     CPU iff the default backend is not already CPU; pass an explicit platform
     name (settings["cone_device"]) to override."""
     import contextlib
@@ -148,9 +149,7 @@ def affine_solve_np(
             # SOC blocks that are per-stage control-norm cones (the natural
             # extra_cstrs encoding of thrust cones) + linear rows: convert
             # the cones to u_soc_r and keep the structured arrow IPM —
-            # 10-50x cheaper than the dense composed program (round-5
-            # profile: 24 ms/IPM-iteration composed vs sub-ms structured,
-            # benchmarks/profile_serial_cone_out.txt). Gated off under
+            # far cheaper than the dense composed program. Gated off under
             # smoothing (the reference smooths box+extras rows together on
             # that path, main.jl:301-316 — semantics differ).
             from .extras import split_stage_u_cones
@@ -288,20 +287,6 @@ def affine_solve_np(
         jnp.asarray(X_prev), jnp.asarray(U_prev), jnp.asarray(Q), jnp.asarray(R),
         jnp.asarray(X_ref), jnp.asarray(U_ref),
     )
-    # size-aware hot-core precision for the condensed host paths (same policy
-    # as the fused loop, see utils.hot_matmul_precision): past nf~64 the
-    # 3-pass 'high' Cholesky error inflates IPM iteration counts, so big
-    # blocks are upgraded to 'highest' at trace time. Only the upgrade case
-    # enters the scope; the riccati stage-structured paths keep their static
-    # 'high' (their factor blocks are udim-sized regardless of N).
-    import contextlib
-
-    from ..utils import hot_matmul_precision, hot_precision_scope
-
-    _udim = fu.shape[-1]
-    _prec = hot_matmul_precision(max((N - Nc) * _udim, Nc * _udim, 1))
-    _hot = ((lambda: hot_precision_scope(_prec)) if _prec != "high"
-            else (lambda: contextlib.nullcontext()))
     reg_args = (
         jnp.asarray(reg_x), jnp.asarray(reg_u),
         jnp.asarray(slew_reg), jnp.asarray(slew_reg0), jnp.asarray(slew_um1),
@@ -339,8 +324,8 @@ def affine_solve_np(
     want_riccati = method_s == "riccati"
     if not method_s:
         # automatic long-horizon routing: the O(N^2) condensation OVERFLOWS
-        # in float32 around N~240 (unstable dynamics compound in Ft; measured
-        # resid=inf in benchmarks/ab_long_horizon_out.txt) exactly where the
+        # in float32 around N~240 (unstable dynamics compound in Ft, and
+        # the residual goes to inf) exactly where the
         # O(N) stage-structured path starts winning on throughput too. Route
         # eligible long-horizon problems to it; anything the riccati path
         # cannot express (cones, extras, smoothing) stays on the condensed
@@ -438,13 +423,12 @@ def affine_solve_np(
                 *base_args, reg_args[0], reg_args[1], Nc=Nc, **slew_kw)
             return (np.asarray(X), np.asarray(U),
                     dict(solver_state=settings.get("solver_state")))
-        with _hot():
-            cqp = assemble_condensed(
-                *base_args, *reg_args, Nc=Nc, weights=weights,
-                scale_slew_target=bool(
-                    settings.get("weights_scale_slew_target", True)))
-            uc, uf = solve_eq(cqp)
-            X, U = recover_XU(cqp, uc, uf, N=N)
+        cqp = assemble_condensed(
+            *base_args, *reg_args, Nc=Nc, weights=weights,
+            scale_slew_target=bool(
+                settings.get("weights_scale_slew_target", True)))
+        uc, uf = solve_eq(cqp)
+        X, U = recover_XU(cqp, uc, uf, N=N)
         data: Dict[str, Any] = dict(solver_state=settings.get("solver_state"))
         return np.asarray(X), np.asarray(U), data
 
@@ -466,14 +450,13 @@ def affine_solve_np(
         # mu floor
         from .ipm import ipm_solve_np
 
-        with _hot():
-            return ipm_solve_np(
-                base_args, reg_args, u_l, u_u, x_l, x_u, Nc=Nc,
-                weights=weights,
-                settings=dict(settings, mu_target=1.0 / alpha),
-                ex_G=ex_lin[0] if ex_lin is not None else None,
-                ex_h=ex_lin[1] if ex_lin is not None else None,
-            )
+        return ipm_solve_np(
+            base_args, reg_args, u_l, u_u, x_l, x_u, Nc=Nc,
+            weights=weights,
+            settings=dict(settings, mu_target=1.0 / alpha),
+            ex_G=ex_lin[0] if ex_lin is not None else None,
+            ex_h=ex_lin[1] if ex_lin is not None else None,
+        )
 
     if smooth_cstr == "squareplus":
         from .barrier import barrier_solve_np
@@ -488,10 +471,9 @@ def affine_solve_np(
 
     from .ipm import ipm_solve_np
 
-    with _hot():
-        return ipm_solve_np(
-            base_args, reg_args, u_l, u_u, x_l, x_u, Nc=Nc, weights=weights,
-            settings=settings,
-            ex_G=ex_lin[0] if ex_lin is not None else None,
-            ex_h=ex_lin[1] if ex_lin is not None else None,
-        )
+    return ipm_solve_np(
+        base_args, reg_args, u_l, u_u, x_l, x_u, Nc=Nc, weights=weights,
+        settings=settings,
+        ex_G=ex_lin[0] if ex_lin is not None else None,
+        ex_h=ex_lin[1] if ex_lin is not None else None,
+    )

@@ -148,10 +148,9 @@ def split_stage_u_cones(sig, arrays, M, N, Nc, udim):
     ``h = [r; 0..]`` and ``G`` rows 1..udim carrying ``c*I`` on one stage's
     contiguous control slice (``||c u_ij|| <= r``). Those are exactly the
     ``u_soc_r`` cones the structured arrow IPM (`ipm.SocSpec`) and the
-    riccati IPM solve natively — 10-50x cheaper than densifying the whole
-    program through the composed cone path (the round-4 composed route ran
-    245 such cones at ~24 ms/IPM-iteration on an nv=490 dense program,
-    benchmarks/profile_serial_cone_out.txt). Runs on the host EVERY SCP
+    riccati IPM solve natively — far cheaper than densifying the whole
+    program through the composed cone path (245 such cones make an nv=490
+    dense program there). Runs on the host EVERY SCP
     iteration (extras may come from per-iteration callbacks), so the block
     checks are vectorized over all cones of a tuple at once.
 

@@ -1,12 +1,11 @@
 """Parallel-in-time (associative-scan) Riccati sweeps: O(log N) depth LQR.
 
 `riccati.py` solves the stage-structured SCP subproblem with sequential
-`lax.scan` sweeps — O(N) tiny matmuls whose latency chain dominates on TPU at
-long horizons. This module solves the SAME problems with
+`lax.scan` sweeps — O(N) tiny matmuls whose latency chain dominates at long
+horizons. This module solves the SAME problems with
 `lax.associative_scan`: the backward value recursion is re-expressed as a
 suffix product of *conditional value function* elements, giving O(log N)
-combine depth with batched (all-stages-at-once) dense work that the MXU
-actually likes. This is the parallel-in-time ("context/sequence parallel")
+combine depth with batched (all-stages-at-once) dense work. This is the parallel-in-time ("context/sequence parallel")
 analog the SURVEY's long-context note calls optional — the reference keeps
 the horizon sparse-sequential (block-bidiagonal chains handed to CPU solvers,
 ``PMPC.jl/src/lqp_utils.jl:219-303``).

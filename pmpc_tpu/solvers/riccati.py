@@ -42,7 +42,7 @@ class LQRSolution(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=())
-@with_matmul_precision("high")
+@with_matmul_precision("highest")
 def riccati_solve(x0, c, A, B, Qt, xt, Rt, ut) -> LQRSolution:
     """Solve the affine-dynamics tracking LQR via backward/forward scans.
 
@@ -265,7 +265,7 @@ def _theta_forward(x0, c, A, B, theta, gains):
 
 
 @partial(jax.jit, static_argnames=("Nc",))
-@with_matmul_precision("high")
+@with_matmul_precision("highest")
 def riccati_consensus_solve(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
                             reg_x, reg_u, Nc: int,
                             slew_reg=None, slew_reg0=None, slew_um1=None):

@@ -128,22 +128,11 @@ _PREC_OVERRIDE: "contextvars.ContextVar" = contextvars.ContextVar(
     "pmpc_tpu_matmul_precision", default=None)
 
 
-def hot_matmul_precision(n: int) -> str:
-    """Size-dependent precision policy for the f32 hot cores.
-
-    Measured on the chip (benchmarks/ab_forcing_out.txt): at the flagship
-    block size (nf=50) 'high' (3-pass bf16) is accuracy-neutral and +12%
-    throughput, but at the pod-scale block size (nf=90) the 3-pass factor
-    error inflates the IPM iteration count ~70% (74.6 vs 44.4 its/solve) and
-    LOSES 25% — the error of an n x n Cholesky grows with n while the flop
-    saving is constant. Crossover bracketed between 50 and 90."""
-    return "high" if n <= 64 else "highest"
-
-
 class hot_precision_scope:
-    """Context manager: override the hot cores' traced matmul precision
-    (consulted by every `with_matmul_precision` wrapper below; the env var
-    PMPC_TPU_MATMUL_PRECISION still wins over everything)."""
+    """Context manager: override the solver cores' traced matmul precision
+    (consulted by every `with_matmul_precision` wrapper below at trace time;
+    the env var PMPC_TPU_MATMUL_PRECISION still wins over everything).
+    `chip_smoke.py` uses it to run the flagship under "high" for comparison."""
 
     def __init__(self, prec: Optional[str]):
         self.prec = prec
@@ -161,18 +150,14 @@ class hot_precision_scope:
 def with_matmul_precision(prec: str):
     """Decorator: trace the wrapped function under ``jax.default_matmul_precision``.
 
-    On TPU, float32 matmuls default to single-pass bfloat16 MXU execution
-    (~8 mantissa bits) — catastrophic for an interior-point solver. Policy
-    (override everything with env PMPC_TPU_MATMUL_PRECISION):
-
-    - the f32 HOT cores (fused SCP loop, condensed assembly, box IPM,
-      riccati sweeps) run at 'high' (3-pass bf16, ~f32-faithful products):
-      +12%% flagship throughput over 'highest' with the accuracy envelope
-      intact — flagship probe 8.1e-4 and 8/8 + 8/8 hard-instance sweeps
-      within the 1e-3 BASELINE tolerance (benchmarks/ab_precision notes in
-      RESULTS_r3.md),
-    - accuracy-critical / f64-host cores (cone IPM, exp barrier, smooth
-      Newton, sensitivities) stay at 'highest' (6-pass, full f32)."""
+    Every solver core runs at 'highest' (full f32 products). On an NVIDIA
+    GPU, 'high' and the default let f32 matmuls run in TF32 (~10 mantissa
+    bits). Measured on an H100 (700 W) with the flagship batch (B=64, M=32,
+    N=30, f32): 'highest' took 0.1045 s per call against 0.1178 s under
+    'high', and kept the solution closer to the float64 one, so there is no
+    speed to buy with TF32 at these block sizes (PERF.md). Override with env
+    PMPC_TPU_MATMUL_PRECISION or `hot_precision_scope`.
+    """
     import functools
 
     import jax

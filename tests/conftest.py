@@ -3,8 +3,11 @@ import pytest
 import jax
 
 # Tests compare against float64 numpy oracles; the library itself is
-# dtype-generic (float32 on TPU).
+# dtype-generic (float32 on the accelerator).
 jax.config.update("jax_enable_x64", True)
+# An 8-device virtual CPU mesh for the sharding tests. It must be set before
+# any backend starts, so here, before a test module touches a device.
+jax.config.update("jax_num_cpu_devices", 8)
 
 
 @pytest.fixture(autouse=True, scope="module")

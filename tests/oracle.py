@@ -7,7 +7,7 @@ Independent re-derivation of the reference's canonical-form math
 
 objective 0.5 z'Pz + q'z, dynamics equality A z = b, optional box bounds.
 Solved with dense KKT (equality-only) or scipy trust-constr (with bounds),
-used as the golden reference for the TPU solver's outputs.
+used as the golden reference for the on-device solver's outputs.
 """
 
 from __future__ import annotations

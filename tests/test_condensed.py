@@ -70,7 +70,7 @@ def test_eq_solve_matches_kkt_oracle(Nc, slew):
     z = oracle.solve_eq_kkt(P, q, A, b)
     X_o, U_o = oracle.split_z(z, N, xdim, udim, M, Nc)
 
-    # condensed TPU-native solve
+    # condensed on-device solve
     cqp = assemble_condensed(
         *[jnp.asarray(p[k]) for k in
           ["x0", "f", "fx", "fu", "X_prev", "U_prev", "Q", "R", "X_ref", "U_ref"]],

@@ -1,6 +1,5 @@
 """Batched cone solves, SOC-heavy half (own module so xdist loadscope
-spreads the conebatch battery across workers — suite-time budget,
-RESULTS_r5 §9)."""
+spreads the conebatch battery across workers — suite-time budget)."""
 
 import numpy as np
 

@@ -455,9 +455,7 @@ def test_stage_u_cone_extras_take_structured_route():
     """Per-stage control-norm SOC extras are detected (split_stage_u_cones)
     and solved as u_soc_r cones on the structured arrow IPM — the composed
     dense cone program must NOT be built. Mixed with linear rows, the rows
-    ride the SMW border; numerics match the composed route (round-5
-    serial-latency task: 24 ms/IPM-it composed vs ~1.3 ms structured,
-    benchmarks/profile_serial_cone_out.txt)."""
+    ride the SMW border; numerics match the composed route."""
     from pmpc_tpu.solvers import compose as comp
 
     rng = np.random.default_rng(33)

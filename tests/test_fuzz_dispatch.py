@@ -124,7 +124,7 @@ def test_fuzz_consensus_qp_routes(seed):
 @pytest.mark.parametrize("seed", range(106, 115))
 def test_fuzz_consensus_qp_routes_full(seed):
     """Full-depth seed sweep (nightly marker; same oracle as the default
-    subset above — suite-time budget, RESULTS_r5 §9)."""
+    subset above — suite-time budget)."""
     _run_case(seed)
 
 

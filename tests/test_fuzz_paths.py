@@ -145,12 +145,12 @@ def test_host_vs_fused_soc_agree(seed):
 @pytest.mark.nightly
 @pytest.mark.parametrize("seed", range(205, 212))
 def test_host_vs_fused_paths_agree_full(seed):
-    """Full-depth seed sweep (nightly; RESULTS_r5 §9)."""
+    """Full-depth seed sweep (nightly)."""
     test_host_vs_fused_paths_agree(seed)
 
 
 @pytest.mark.nightly
 @pytest.mark.parametrize("seed", range(304, 308))
 def test_host_vs_fused_soc_agree_full(seed):
-    """Full-depth seed sweep (nightly; RESULTS_r5 §9)."""
+    """Full-depth seed sweep (nightly)."""
     test_host_vs_fused_soc_agree(seed)

@@ -16,10 +16,11 @@ def test_entry_compiles_and_runs():
     assert np.asarray(U).max() <= 1.0 + 1e-5
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_dryrun_multichip():
     import __graft_entry__ as g
 
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
     # the 8-device mesh covers the (batch x particle) partitioning and all
     # three shard checks; a second full dryrun at another size doubled the
     # module's compile cost for no new coverage (the driver separately

@@ -120,8 +120,8 @@ def test_ipm_inactive_bounds_match_eq():
 
 def test_ipm_single_solve_mode_matches_mehrotra():
     """``ipm_core(predictor=False)`` — the LOQO heuristic-sigma single-solve
-    mode (a measured flagship negative, benchmarks/ab_single_solve.py, but a
-    supported option) must still reach the Mehrotra solution on a box QP."""
+    mode (off by default, but a supported option) must still reach the
+    Mehrotra solution on a box QP."""
     import jax.numpy as jnp
 
     from pmpc_tpu.solvers.ipm import BoxBounds, ipm_core

@@ -217,9 +217,8 @@ def test_relin_stale_same_fixed_point():
     """Stale-Jacobian sub-iterations (relin_stale) keep the affine map and
     Hessians frozen and only move the prox/ref terms: at the fixed point a
     stale subproblem equals the fresh one, so both solvers must land on the
-    same solution (they do on this mildly nonlinear problem; on the
-    flagship dubins the mode is a measured NEGATIVE — ab_stale_out.txt —
-    and stays off by default)."""
+    same solution (they do on this mildly nonlinear problem; the mode stays
+    off by default)."""
     import jax
 
     def dyn(x, u):

@@ -9,7 +9,7 @@ slew_um1 anchor scaling at main.jl:107), the SCP loop semantics of
 ``pmpc/scp_mpc.py:337-428`` — and solves each subproblem with scipy
 (equality KKT / trust-constr), never touching pmpc_tpu solver code.
 
-The logbarrier test proves the exp-cone reformulation claim (VERDICT item 7):
+The logbarrier test proves the exp-cone reformulation claim:
 the reference encodes ``smooth_cstr="logbarrier"`` constraints as ECOS exp
 cones adding sum_i -(1/alpha) log(alpha(b_i - a_i'z)) to the objective
 (``cone_utils.jl:173-232``); pmpc_tpu solves the same problem as the central
@@ -171,7 +171,7 @@ def test_parity_weights_Nc_bounds_slew():
 
 
 def test_parity_logbarrier_smoothing_is_expcone_solution():
-    """VERDICT item 7: the reference encodes logbarrier smoothing as ECOS exp
+    """The reference encodes logbarrier smoothing as ECOS exp
     cones, i.e. it MINIMIZES 0.5 z'Pz + q'z + sum_i -(1/a) log(a(b_i - g_i'z))
     (cone_utils.jl:173-232). pmpc_tpu's central-path solve (mu_target = 1/a)
     must land on the same point."""

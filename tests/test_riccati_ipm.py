@@ -668,8 +668,7 @@ def test_fused_riccati_slew_matches_condensed():
 def test_long_horizon_slew_default_settings_solves():
     """Receding-horizon style long-N problem WITH slew: the auto riccati
     route (augmented stage state) returns a finite bounded solution under
-    default settings — previously no f32-safe route existed (VERDICT r2
-    missing #3)."""
+    default settings (the condensed route overflows in f32 at this N)."""
     import pmpc_tpu
     from fixtures import dubins_f_fx_fu_fn
 
@@ -772,8 +771,7 @@ def test_riccati_ipm_linear_extras_with_slew_and_state_boxes():
 
 def test_long_horizon_linear_extras_default_settings():
     """N=280 with a linear extra row: the auto long-horizon route carries it
-    in O(N) — round 3 had NO f32 route for extras past the condensation
-    overflow (VERDICT r3 missing #1 / the §6b 'condensed-only' gap)."""
+    in O(N) — the f32 route for extras past the condensation overflow."""
     import pmpc_tpu
     from fixtures import dubins_f_fx_fu_fn
 

@@ -105,7 +105,7 @@ def test_registered_function_cache():
 
 def test_f32_stall_guardrail_triggers_and_stays_silent():
     """The documented f32 failure signature (SCP residual plateau >=10x
-    res_tol, benchmarks/RESULTS_r2.md 'f32 envelope') must surface as
+    res_tol, the f32 envelope of benchmarks/accuracy_sweep.py) must surface as
     data['f32_stall_suspected'] + a RuntimeWarning suggesting f64; a
     well-conditioned f32 solve must stay silent."""
     import warnings

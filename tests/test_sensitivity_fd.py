@@ -1,5 +1,5 @@
 """Finite-difference sensitivity oracle (own module for xdist overlap
-— suite-time budget, RESULTS_r5 §9)."""
+— suite-time budget)."""
 
 import numpy as np
 import jax

@@ -10,9 +10,10 @@ from pmpc_tpu.parallel import make_mesh, make_sharded_solver, shard_batched_data
 from fixtures import unicycle_step
 
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device virtual CPU mesh"
-)
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device virtual CPU mesh")
 
 
 def _batch_data(B, M, N, xdim, udim, seed=0, bounds=False):
